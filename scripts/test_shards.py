@@ -36,7 +36,6 @@ WEIGHTS = {
     "test_horizon.py": 14,
     "test_spike.py": 11,
     "test_polish_soc.py": 9,
-    "test_fused.py": 6,
     "test_prox.py": 3,
     "test_soc_scale.py": 3,
 }

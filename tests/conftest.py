@@ -4,15 +4,9 @@ Must run before jax initialises its backend, hence top of conftest.
 """
 import os
 
-# Persist compiled executables across test runs (first-compile of the
-# full solver is the dominant suite cost).
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache"))
-
-# Force CPU even when the shell pre-sets a TPU platform: the suite
-# validates numerics in f64 and exercises an 8-device virtual mesh.
+# Force CPU even where a GPU is present: the suite validates numerics in
+# f64 and exercises an 8-device virtual mesh. Tests that need the card
+# are marked `gpu` and run through the `gpu_device` fixture.
 os.environ["JAX_PLATFORMS"] = "cpu"
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
@@ -27,6 +21,9 @@ if "xla_force_host_platform_device_count" not in flags:
 # signature of native stack/map exhaustion late in a long process,
 # while any subset of the suite passed.
 import resource  # noqa: E402
+import shutil  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
 
 _soft, _hard = resource.getrlimit(resource.RLIMIT_STACK)
 if _soft != resource.RLIM_INFINITY and _soft < 64 * 1024 * 1024:
@@ -37,10 +34,14 @@ if _soft != resource.RLIM_INFINITY and _soft < 64 * 1024 * 1024:
 import jax  # noqa: E402
 import pytest  # noqa: E402
 
-# The env var alone is not honoured when a TPU PJRT plugin pre-registers;
-# the config update is authoritative.
+from admm_library.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+# The config update is authoritative over an installed GPU plugin.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+# Persist compiled executables across test runs (first-compile of the
+# full solver is the dominant suite cost).
+enable_compile_cache()
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -53,3 +54,22 @@ def _clear_jax_caches_per_module():
     """
     yield
     jax.clear_caches()
+
+
+@pytest.fixture(scope="session")
+def gpu_card():
+    """Skip unless an NVIDIA GPU is visible to a fresh JAX process.
+
+    This process is forced onto the CPU (above), so tests that need the
+    card run their work in a child with the platform left to JAX.
+    """
+    if shutil.which("nvidia-smi") is None:
+        pytest.skip("no NVIDIA GPU (nvidia-smi not found)")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import jax; print(jax.devices()[0].platform)"],
+        env=env, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0 or out.stdout.strip() != "gpu":
+        pytest.skip("JAX finds no GPU")

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from admm_library_tpu import Settings, Status, solve
-from admm_library_tpu.models.random_qp import random_box_qp
-from admm_library_tpu.parallel import runtime
-from admm_library_tpu.utils import checkpoint, profiling
+from admm_library import Settings, Status, solve
+from admm_library.models.random_qp import random_box_qp
+from admm_library.parallel import runtime
+from admm_library.utils import checkpoint, profiling
 
 
 def test_checkpoint_resume_warm_start(tmp_path):
@@ -63,8 +63,8 @@ def test_elastic_recovery_mid_solve(tmp_path):
     (simulated by a max_iter cap), its state checkpointed, and the solve
     resumed on a SMALLER device mesh from the snapshot — the resumed
     solve must converge to the same solution as an uninterrupted run."""
-    from admm_library_tpu.models import monte_carlo as mc
-    from admm_library_tpu.parallel.batch import (
+    from admm_library.models import monte_carlo as mc
+    from admm_library.parallel.batch import (
         make_data_mesh, shard_batch, solve_batch_shared)
 
     qp, spec, _ = mc.monte_carlo_mpc(

@@ -1,25 +1,17 @@
-"""resolve_backend's banded-vs-inv crossover, justified by measurement
-(VERDICT r4 item 9).
+"""The banded-vs-inv trade behind `api.resolve_backend`'s per-platform
+choice for MPC-structured problems.
 
-api.resolve_backend prefers 'inv' over 'banded' on TPU for n <= 2048
-even when MPC block structure is declared. The asymptotics behind the
-heuristic: per ADMM iteration, the banded solve costs O(N b^3) = O(n b^2)
-sequential block-scan FLOPs while the explicit-inverse apply costs
-O(n^2) in ONE MXU matmul — so banded wins FLOPs-wise for n >> b^2, but
-its 2N-step sequential scan is latency-bound at batch 1 on TPU, pushing
-the practical crossover far right. Measured on the v5 lite chip
-(scripts/bench_backends.py, round 3): horizon-50 MPC (n = 450) solved
-3.2 s banded vs sub-second inv — 'inv' wins the entire n <= 2048 range
-the heuristic covers; the banded scan only pays off on TPU once the
-(n, n) inverse no longer fits compute/memory budgets (n >> 2048) or
-under large shared-matrix batches where the scan amortises.
+Per ADMM iteration the banded solve costs O(N b^3) = O(n b^2) FLOPs in a
+2N-step sequential block scan, while the explicit-inverse apply costs
+O(n^2) in one matmul — so banded wins FLOPs-wise for n >> b^2, but its
+sequential scan is latency-bound at batch 1. Which side a device lands
+on is measured per platform (scripts/bench_backends.py, PERF.md).
 
 This test pins the TREND on CPU (timings, generous slack — absolutes
 are machine-dependent): the banded/inv per-iteration time ratio must
 decrease as n grows at fixed block size, i.e. the banded scan becomes
-RELATIVELY cheaper with n, which is what makes a threshold (rather
-than always-inv) the right shape for the heuristic. It also asserts
-both backends agree on the solution to f64 accuracy.
+RELATIVELY cheaper with n. It also asserts both backends agree on the
+solution to f64 accuracy.
 """
 import time
 
@@ -28,8 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from admm_library_tpu.models.double_integrator import build_mpc_qp
-from admm_library_tpu.ops import kkt
+from admm_library.models.double_integrator import build_mpc_qp
+from admm_library.ops import kkt
 
 
 def _setup(N):
@@ -67,8 +59,8 @@ def test_backends_agree(N):
 
 def test_banded_inv_ratio_trend():
     """banded/inv per-iteration time ratio decreases with n (block size
-    fixed): N=56 -> n=504 vs N=228 -> n=2052 (just past the TPU 'auto'
-    threshold). Slack 0.9: the model ratio shrinks ~4x ((b^2/n)
+    fixed): N=56 -> n=504 vs N=228 -> n=2052 (about the N=200
+    low-thrust SOCP's size). Slack 0.9: the model ratio shrinks ~4x ((b^2/n)
     scaling), so even heavy CI noise keeps the ordering."""
     ratios = {}
     for N in (56, 228):

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from admm_library_tpu import Settings, Status, solve
-from admm_library_tpu.models import monte_carlo as mc
-from admm_library_tpu.models.double_integrator import rollout
-from admm_library_tpu.parallel.batch import (
+from admm_library import Settings, Status, solve
+from admm_library.models import monte_carlo as mc
+from admm_library.models.double_integrator import rollout
+from admm_library.parallel.batch import (
     make_data_mesh, shard_batch, solve_batch_shared)
-from admm_library_tpu.problem import QPData
+from admm_library.problem import QPData
 
 TOL = Settings(eps_abs=1e-8, eps_rel=1e-8)
 
@@ -64,15 +64,13 @@ def test_shared_batch_honest_lane_iters():
 def test_sharded_batch_over_mesh():
     """P1 over an 8-device mesh: results identical to unsharded run.
 
-    fused='off' on both sides so the comparison runs the SAME program
-    (the sharded path cannot use the Pallas kernel, and fused-vs-XLA
-    f32 arithmetic differs in the last bits by design). Agreement is
-    asserted at solve tolerance, not bitwise: the shared-rho geomean is
+    Agreement is asserted at solve tolerance, not bitwise: the
+    shared-rho geomean is
     a cross-lane reduction whose order differs across topologies
     (SURVEY.md §7 bitwise-stability scope: same-topology bitwise,
     cross-topology tolerance-level)."""
     assert jax.device_count() >= 8
-    s = TOL.replace(fused="off")
+    s = TOL
     qp, spec, _ = mc.monte_carlo_mpc(
         jax.random.key(4), batch=16, N=6, dim=2, dtype=jnp.float64)
     ref = solve_batch_shared(qp, s)
@@ -90,7 +88,7 @@ def test_shared_batch_cw_l1():
     sols = solve_batch_shared(qp, Settings(
         eps_abs=1e-8, eps_rel=1e-8, max_iter=40000))
     assert np.all(np.asarray(sols.status) == int(Status.SOLVED))
-    from admm_library_tpu.models import clohessy_wiltshire as cw
+    from admm_library.models import clohessy_wiltshire as cw
     for i in range(4):
         states = cw.propagate(spec, s0s[i], sols.x[i])
         assert float(jnp.max(jnp.abs(states[-1]))) < 1e-3
@@ -122,32 +120,11 @@ def test_recentered_zero_rounds_falls_back():
     assert np.all(np.asarray(sol.status) == int(Status.SOLVED))
 
 
-def test_fused_kernel_on_sharded_mesh():
-    """VERDICT r1 item 2: the fused Pallas iteration kernel executes on
-    a >1-device mesh (per-device pallas_call inside shard_map, interpret
-    mode on CPU) and matches the unsharded XLA body."""
-    import numpy as np
-    from admm_library_tpu.models import monte_carlo as mc
-    from admm_library_tpu.parallel.batch import (
-        make_data_mesh, shard_batch, solve_batch_shared)
-
-    qp, spec, _ = mc.monte_carlo_mpc(
-        jax.random.PRNGKey(3), batch=16, N=8, dim=2, dtype=jnp.float32)
-    s_on = Settings(eps_abs=1e-5, eps_rel=1e-5, fused="on", backend="inv")
-    s_off = s_on.replace(fused="off")
-    ref = solve_batch_shared(qp, s_off)
-    qp_s, *_ = shard_batch(qp, make_data_mesh(8))
-    sol = solve_batch_shared(qp_s, s_on)
-    assert np.all(np.asarray(sol.status) == int(Status.SOLVED))
-    np.testing.assert_allclose(
-        np.asarray(sol.x), np.asarray(ref.x), atol=2e-5)
-
-
 def test_batch_history_trace():
-    """Residual ring buffer wired into the batch path (VERDICT item 7)."""
+    """Residual ring buffer wired into the batch path."""
     import numpy as np
-    from admm_library_tpu.models import monte_carlo as mc
-    from admm_library_tpu.parallel.batch import solve_batch_shared
+    from admm_library.models import monte_carlo as mc
+    from admm_library.parallel.batch import solve_batch_shared
 
     qp, spec, _ = mc.monte_carlo_mpc(
         jax.random.PRNGKey(4), batch=8, N=8, dim=2, dtype=jnp.float32)
@@ -167,8 +144,8 @@ def test_residual_trace_stability_across_topologies():
     topologies agree on the trace to <= 1e-6 (reduction orders differ
     across mesh shapes, so bitwise is only promised per-topology)."""
     import numpy as np
-    from admm_library_tpu.models import monte_carlo as mc
-    from admm_library_tpu.parallel.batch import (
+    from admm_library.models import monte_carlo as mc
+    from admm_library.parallel.batch import (
         make_data_mesh, shard_batch, solve_batch_shared)
 
     qp, spec, _ = mc.monte_carlo_mpc(

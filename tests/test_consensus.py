@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from admm_library_tpu import Settings, Status, solve
-from admm_library_tpu.models.double_integrator import build_mpc_qp, rollout
-from admm_library_tpu.models.partitioned import (
+from admm_library import Settings, Status, solve
+from admm_library.models.double_integrator import build_mpc_qp, rollout
+from admm_library.models.partitioned import (
     assemble_trajectory, partition_mpc)
-from admm_library_tpu.parallel.batch import make_data_mesh
-from admm_library_tpu.parallel.consensus import consensus_solve
+from admm_library.parallel.batch import make_data_mesh
+from admm_library.parallel.consensus import consensus_solve
 
 S0 = np.array([1.0, -2.0, 0.3, -0.1])
 ST = np.zeros(4)
@@ -126,9 +126,9 @@ def test_consensus_primal_infeasible():
     authority + an unreachable terminal equality -> the block problem
     is primal infeasible and the certificate must fire (not MAX_ITER)."""
     import numpy as np
-    from admm_library_tpu.models.partitioned import partition_mpc
-    from admm_library_tpu.parallel.batch import make_data_mesh
-    from admm_library_tpu.parallel.consensus import consensus_solve
+    from admm_library.models.partitioned import partition_mpc
+    from admm_library.parallel.batch import make_data_mesh
+    from admm_library.parallel.consensus import consensus_solve
 
     s0 = np.array([1.0, -2.0, 0.3, -0.1])
     s_t = np.array([50.0, 40.0, 0.0, 0.0])

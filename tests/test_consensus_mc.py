@@ -3,13 +3,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from admm_library_tpu import Settings, Status
-from admm_library_tpu.models.double_integrator import rollout
-from admm_library_tpu.models.partitioned import (
+from admm_library import Settings, Status
+from admm_library.models.double_integrator import rollout
+from admm_library.models.partitioned import (
     assemble_trajectory, partition_mpc_mc)
-from admm_library_tpu.parallel import runtime
-from admm_library_tpu.parallel.consensus import consensus_solve
-from admm_library_tpu.parallel.consensus_mc import consensus_solve_mc
+from admm_library.parallel import runtime
+from admm_library.parallel.consensus import consensus_solve
+from admm_library.parallel.consensus_mc import consensus_solve_mc
 
 S0 = np.array([1.0, -2.0, 0.3, -0.1])
 ST = np.zeros(4)
@@ -48,8 +48,8 @@ def test_consensus_mc_matches_single_scenario():
     sol_mc = consensus_solve_mc(qp_mc, spec, mesh2, TOL)
     assert np.all(np.asarray(sol_mc.status) == int(Status.SOLVED))
 
-    from admm_library_tpu.models.partitioned import partition_mpc
-    from admm_library_tpu.parallel.batch import make_data_mesh
+    from admm_library.models.partitioned import partition_mpc
+    from admm_library.parallel.batch import make_data_mesh
     qp_blk, spec1, _ = partition_mpc(
         S0, ST, N=16, n_blocks=8, dim=2, u_max=2.0, dtype=jnp.float64)
     sol_1 = consensus_solve(
@@ -76,10 +76,10 @@ def test_consensus_mc_infeasible_lane():
     target are PRIMAL_INFEASIBLE per lane."""
     import numpy as np
     import jax.numpy as jnp
-    from admm_library_tpu import Settings, Status
-    from admm_library_tpu.models.partitioned import partition_mpc_mc
-    from admm_library_tpu.parallel.consensus_mc import consensus_solve_mc
-    from admm_library_tpu.parallel.runtime import make_mesh
+    from admm_library import Settings, Status
+    from admm_library.models.partitioned import partition_mpc_mc
+    from admm_library.parallel.consensus_mc import consensus_solve_mc
+    from admm_library.parallel.runtime import make_mesh
     import jax
 
     s0 = np.array([1.0, -2.0, 0.3, -0.1])

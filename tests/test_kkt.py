@@ -1,10 +1,9 @@
 """Unit tests for L0 KKT backends K1/K2/K3 (SURVEY.md §4.1)."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from admm_library_tpu.ops import banded, kkt
+from admm_library.ops import banded, kkt
 
 
 def _random_system(seed, n=40, m=60):
@@ -42,16 +41,11 @@ def test_condensed_solve_batched_rhs(backend):
 def test_condensed_factor_batched_matrix(backend):
     """Batched (blocks, n, n) factor — the consensus per-block shape.
 
-    Regression: the 'inv' factor's identity rhs must broadcast to L's
-    batch dims explicitly (TPU triangular_solve rejects unbatched rhs
-    against batched L; crashed bench consensus_mc on chip, round 3).
-
-    SCOPE (ADVICE r3): this suite runs on the forced-CPU backend, which
-    accepted the unbatched rhs via implicit broadcasting even pre-fix —
-    so this test guards the SHAPE CONTRACT only, not the TPU
-    triangular_solve lowering that actually crashed. The true gate for
-    the lowering is the on-chip bench (consensus_mc in
-    PERF_CONFIGS.json), which exercises the same factor on the TPU.
+    The 'inv' factor's identity rhs is broadcast to L's batch dims
+    explicitly, because a triangular_solve lowering need not broadcast
+    an unbatched rhs against a batched L. The CPU backend accepts
+    either, so this test guards the SHAPE CONTRACT only; the lowering
+    on the card is exercised by chip_smoke.py's consensus_mc phase.
     """
     sys = [_random_system(s, n=24, m=30) for s in range(3)]
     P = jnp.stack([t[0] for t in sys])
@@ -141,35 +135,3 @@ def test_banded_backend_through_kkt():
     x = kkt.solve_condensed(fac, rhs, "banded")
     M = kkt.condensed_matrix(P, A, 1e-6, rho)
     assert float(jnp.max(jnp.abs(M @ x - rhs))) < 1e-9
-
-
-def test_pallas_cg_matches_chol():
-    """K3 Pallas PCG kernel (interpret mode on CPU) vs dense Cholesky."""
-    import jax
-    from admm_library_tpu.ops.pallas_cg import pallas_cg_solve
-    key = jax.random.key(11)
-    n, B = 24, 4
-    R = jax.random.normal(key, (n, n), dtype=jnp.float64)
-    M = R @ R.T + n * jnp.eye(n, dtype=jnp.float64)
-    rhs = jax.random.normal(jax.random.key(12), (B, n), dtype=jnp.float64)
-    x = pallas_cg_solve(M, rhs, iters=200, tol=1e-12, interpret=True)
-    ref = jnp.linalg.solve(M, rhs.T).T
-    np.testing.assert_allclose(np.asarray(x), np.asarray(ref), atol=1e-8)
-    # 1-D rhs round-trips shape
-    x1 = pallas_cg_solve(M, rhs[0], iters=200, tol=1e-12, interpret=True)
-    assert x1.shape == (n,)
-    np.testing.assert_allclose(np.asarray(x1), np.asarray(ref[0]), atol=1e-8)
-
-
-def test_pallas_cg_backend_through_solver():
-    """backend='pallas_cg' solves a QP end-to-end (CPU interpret mode)."""
-    from admm_library_tpu import Settings, Status, solve
-    from admm_library_tpu.models.random_qp import random_box_qp
-    qp = random_box_qp(jax.random.key(13), n=30, m=60)
-    s = Settings(eps_abs=1e-8, eps_rel=1e-8, backend="pallas_cg",
-                 cg_max_iter=100, cg_tol=1e-10)
-    sol = solve(qp, s)
-    assert int(sol.status) == int(Status.SOLVED)
-    ref = solve(qp, Settings(eps_abs=1e-8, eps_rel=1e-8))
-    np.testing.assert_allclose(
-        np.asarray(sol.x), np.asarray(ref.x), atol=1e-5)

@@ -3,10 +3,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from admm_library_tpu import Settings, Status, solve
-from admm_library_tpu.models import clohessy_wiltshire as cw
-from admm_library_tpu.models import low_thrust as lt
-from admm_library_tpu.models import monte_carlo as mc
+from admm_library import Settings, Status, solve
+from admm_library.models import clohessy_wiltshire as cw
+from admm_library.models import low_thrust as lt
+from admm_library.models import monte_carlo as mc
 
 TOL = Settings(eps_abs=1e-8, eps_rel=1e-8, max_iter=40000)
 

@@ -10,9 +10,9 @@ config-4 path in tests/test_restart.py, not here).
 import jax.numpy as jnp
 import numpy as np
 
-from admm_library_tpu import Settings, Status, solve
-from admm_library_tpu.core.polish import polish
-from admm_library_tpu.problem import ConeSpec, QPData
+from admm_library import Settings, Status, solve
+from admm_library.core.polish import polish
+from admm_library.problem import ConeSpec, QPData
 
 
 def _loose_settings():

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from admm_library_tpu.ops import prox
-from admm_library_tpu.problem import ConeSpec
+from admm_library.ops import prox
+from admm_library.problem import ConeSpec
 
 
 def test_box_projection():

@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from admm_library_tpu import Settings, Status, solve
-from admm_library_tpu.models import clohessy_wiltshire as cw
-from admm_library_tpu.models import low_thrust as lt
-from admm_library_tpu.problem import QPData
-from admm_library_tpu.parallel.batch import solve_batch_shared
+from admm_library import Settings, Status, solve
+from admm_library.models import clohessy_wiltshire as cw
+from admm_library.models import low_thrust as lt
+from admm_library.problem import QPData
+from admm_library.parallel.batch import solve_batch_shared
 
 
 def _cw_bench_problem():

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from admm_library_tpu import Settings, Status, solve
-from admm_library_tpu.models.random_qp import random_box_qp
-from admm_library_tpu.parallel.batch import make_data_mesh
-from admm_library_tpu.parallel.rowshard import solve_rowsharded
+from admm_library import Settings, Status, solve
+from admm_library.models.random_qp import random_box_qp
+from admm_library.parallel.batch import make_data_mesh
+from admm_library.parallel.rowshard import solve_rowsharded
 
 
 def test_rowsharded_matches_single():
@@ -25,7 +25,7 @@ def test_rowsharded_matches_single():
 
 
 def test_rowsharded_rejects_straddling_soc():
-    from admm_library_tpu.problem import ConeSpec, QPData
+    from admm_library.problem import ConeSpec, QPData
     n, m = 16, 16
     cone = ConeSpec(m_box=6, soc_dims=(5, 5))
     qp = QPData(
@@ -43,7 +43,7 @@ def test_rowsharded_rejects_straddling_soc():
 def test_rowsharded_l1_matches_single():
     """Rowsharded L1 (min-fuel style) problem end-to-end vs single-chip
     (VERDICT r1 item 6)."""
-    from admm_library_tpu.problem import ConeSpec, QPData
+    from admm_library.problem import ConeSpec, QPData
 
     rng = np.random.default_rng(5)
     n, m_box, m_l1 = 24, 32, 16
@@ -72,7 +72,7 @@ def test_rowsharded_l1_matches_single():
 def test_rowsharded_soc_matches_single():
     """Rowsharded SOC problem (one cone per shard after interleave)
     solved end-to-end vs single-chip."""
-    from admm_library_tpu.problem import ConeSpec, QPData
+    from admm_library.problem import ConeSpec, QPData
 
     rng = np.random.default_rng(7)
     ndev, d = 8, 4
@@ -120,7 +120,7 @@ def test_rowsharded_primal_infeasible():
     """A6 on the row-sharded path (VERDICT r2 item 5): a constructed
     infeasible problem must return PRIMAL_INFEASIBLE, not burn
     max_iter."""
-    from admm_library_tpu.problem import make_qp
+    from admm_library.problem import make_qp
     n, m = 8, 16
     rng = np.random.default_rng(3)
     Arows = rng.standard_normal((8, n))
@@ -139,7 +139,7 @@ def test_rowsharded_primal_infeasible():
 
 def test_rowsharded_dual_infeasible():
     """Unbounded problem over the row shards -> DUAL_INFEASIBLE."""
-    from admm_library_tpu.problem import make_qp
+    from admm_library.problem import make_qp
     n, m = 8, 16
     A = np.eye(m, n)
     A[8:] = np.eye(8, n)
@@ -158,7 +158,7 @@ def test_rowsharded_hybrid_absolute_eps():
     """Hybrid rowshard path (f32 phase + re-centered f32 rounds) reaches
     ABSOLUTE 1e-6 residuals on an f32-input problem — the path the
     rowshard bench config runs (VERDICT r2 item 6)."""
-    from admm_library_tpu.parallel.rowshard import solve_rowsharded_hybrid
+    from admm_library.parallel.rowshard import solve_rowsharded_hybrid
 
     qp = random_box_qp(jax.random.key(33), n=32, m=64, dtype=jnp.float32)
     mesh = make_data_mesh(8)

@@ -13,9 +13,9 @@ only.
 import jax.numpy as jnp
 import numpy as np
 
-from admm_library_tpu import Settings, Status, solve
-from admm_library_tpu.core.admm import rho_vec_of
-from admm_library_tpu.problem import ConeSpec, QPData
+from admm_library import Settings, Status, solve
+from admm_library.core.admm import rho_vec_of
+from admm_library.problem import ConeSpec, QPData
 
 
 def test_rho_vec_soc_scale_rows():

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from admm_library_tpu import Settings, Status, solve, solve_batch
-from admm_library_tpu.core.scaling import ruiz_equilibrate
-from admm_library_tpu.models.random_qp import random_box_qp, random_eq_ineq_qp
-from admm_library_tpu.utils import oracle
+from admm_library import Settings, Status, solve, solve_batch
+from admm_library.core.scaling import ruiz_equilibrate
+from admm_library.models.random_qp import random_box_qp, random_eq_ineq_qp
+from admm_library.utils import oracle
 
 TOL = Settings(eps_abs=1e-8, eps_rel=1e-8, max_iter=20000)
 
@@ -107,7 +107,7 @@ def test_primal_infeasible_detection():
     A = jnp.asarray([[1.0], [1.0]], dtype=jnp.float64)
     l = jnp.asarray([-jnp.inf, 1.0], dtype=jnp.float64)
     u = jnp.asarray([-1.0, jnp.inf], dtype=jnp.float64)
-    from admm_library_tpu.problem import make_qp
+    from admm_library.problem import make_qp
     sol = solve(make_qp(P, q, A, l, u), Settings())
     assert int(sol.status) == int(Status.PRIMAL_INFEASIBLE)
 
@@ -119,7 +119,7 @@ def test_dual_infeasible_detection():
     A = jnp.asarray([[1.0]], dtype=jnp.float64)
     l = jnp.asarray([0.0], dtype=jnp.float64)
     u = jnp.asarray([jnp.inf], dtype=jnp.float64)
-    from admm_library_tpu.problem import make_qp
+    from admm_library.problem import make_qp
     sol = solve(make_qp(P, q, A, l, u), Settings())
     assert int(sol.status) == int(Status.DUAL_INFEASIBLE)
 

@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from admm_library_tpu import Settings, solve
-from admm_library_tpu.models.monte_carlo import monte_carlo_mpc
-from admm_library_tpu.ops import kkt
-from admm_library_tpu.ops.spike import spike_factor, spike_solve
-from admm_library_tpu.parallel.batch import solve_batch_shared
-from admm_library_tpu.solution import Status
+from admm_library import Settings, solve
+from admm_library.models.monte_carlo import monte_carlo_mpc
+from admm_library.ops import kkt
+from admm_library.ops.spike import spike_factor, spike_solve
+from admm_library.parallel.batch import solve_batch_shared
+from admm_library.solution import Status
 
 
 def _random_block_tridiag(rng, N, b, dtype=jnp.float64):
@@ -102,7 +102,7 @@ def test_spike_admm_iterates_match_unpartitioned():
 
 def test_spike_single_solve():
     """solve() accepts backend='spike' for a single banded QP."""
-    from admm_library_tpu.models.double_integrator import build_mpc_qp
+    from admm_library.models.double_integrator import build_mpc_qp
 
     s0 = np.array([1.0, -2.0, 0.5, 0.1, -0.1, 0.0])
     qp, spec = build_mpc_qp(s0, np.zeros(6), N=20, dim=3)
