@@ -1,0 +1,6 @@
+"""Least time for the window's ADMM iterations over device busy time, %."""
+import readers
+
+
+def read(run):
+    return readers.iteration_roofline(run)

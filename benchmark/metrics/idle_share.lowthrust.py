@@ -1,0 +1,6 @@
+"""Share of the traced window with no op on the device, %."""
+import readers
+
+
+def read(run):
+    return readers.idle_share(run)

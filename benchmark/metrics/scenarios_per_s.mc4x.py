@@ -1,0 +1,7 @@
+"""Dispersion scenarios solved (status SOLVED) per second of the window,
+over the four chips."""
+import readers
+
+
+def read(run):
+    return readers.solved_rate(run)

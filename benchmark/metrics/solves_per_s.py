@@ -1,0 +1,6 @@
+"""Solves that ended SOLVED per second of the window."""
+import readers
+
+
+def read(run):
+    return readers.solved_rate(run)
